@@ -1,14 +1,12 @@
 #!/usr/bin/env python
-"""Same-formulation CPU baselines for the README perf table.
+"""Same-formulation CPU baselines.
 
 Runs the identical vszip_tpu library calls on the XLA-CPU backend — the
-same algorithm, the same monomorphized graphs, one host core (this host
-has exactly one) — and prints per-core fps per workload.  This is the
-baseline column behind the README's "Nx vs one CPU core" multiples: not
-the reference's hand-SIMD Zig build (only its three README workloads
-have published numbers), but the same formulation XLA can compile for a
-CPU, which is the honest like-for-like ratio a TPU claim can be checked
-against.  Run on an idle machine:
+same algorithm, the same monomorphized graphs — and prints fps per
+workload.  This is not the reference's hand-SIMD Zig build (only its three
+README workloads have published numbers), but the same formulation XLA can
+compile for a CPU, which is the like-for-like ratio a GPU claim can be
+checked against.  Run on an idle machine:
 
     JAX_PLATFORMS=cpu python benchmarks/cpu_baseline.py [filter ...]
 

@@ -2,13 +2,14 @@
 
 The reference ships per-ISA prebuilt shared libraries in its wheels
 (reference hatch_build.py:99-125 cross-compiles the Zig plugin per target
-and packs a manifest for load-time selection).  The TPU rebuild's native
-surface is much smaller — two host-side helper libraries (Deband RNG
-precompute, PNG scanline unfilter) that are sequential/byte-oriented and
-therefore live in C++ rather than JAX — but the packaging story is the
-same: wheels built here include the compiled ``.so`` next to the sources,
-and ``runtime/deband_rng.py`` / ``runtime/png_native.py`` use the prebuilt
-copy without needing a compiler at import time.  Source installs on a
+and packs a manifest for load-time selection).  This rebuild's native
+surface is much smaller — three host-side helper libraries (Deband RNG
+precompute, Deband's error-diffusion demote, PNG scanline unfilter) that
+are sequential/byte-oriented and therefore live in C++ rather than JAX —
+but the packaging story is the same: wheels built here include the
+compiled ``.so`` next to the sources, and ``runtime/deband_rng.py`` /
+``runtime/dither.py`` / ``runtime/png_native.py`` use the prebuilt copy
+without needing a compiler at import time.  Source installs on a
 machine with ``g++`` still work via the lazy first-use build; without any
 compiler, PNG decode falls back to pure Python and Deband raises a clear
 error (the RNG parity contract cannot be met in pure Python at usable
@@ -25,6 +26,7 @@ from setuptools.command.build_py import build_py
 NATIVE = Path(__file__).parent / "vszip_tpu" / "runtime" / "native"
 LIBS = {
     "deband_rng.cpp": "libvszip_deband_rng.so",
+    "dither.cpp": "libvszip_dither.so",
     "png_unfilter.cpp": "libvszip_png_unfilter.so",
 }
 

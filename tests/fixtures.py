@@ -19,6 +19,12 @@ the YUV444P16/YUV420PS pins in test_zimg_convert.py), so the reference's own
 golden JSONs are directly comparable.
 Geometry variants reproduce the reference's full/odd/tiny scheme
 (reference tests/conftest.py:108-121).
+
+Tests that pin an op against an in-repo literal oracle (tests/oracle/) do
+not need the photo: they take `seeded_rgb24()` / `seeded_temporal_rgb24()`,
+a procedural image of the same size generated from a fixed seed, with
+gradients, hard edges, fine texture, noise and a clean banded ramp, so
+every filter has work to do.
 """
 
 from __future__ import annotations
@@ -71,6 +77,69 @@ def temporal_rgb24() -> Clip:
     u8 = np.stack([_crop(n) for n in range(3)])
     planes = tuple(u8[:, :, :, c] for c in range(3))
     return Clip.from_planes(planes, get_format("RGB24"))
+
+
+SEED = 20260416
+
+
+@lru_cache(maxsize=1)
+def _seeded_canvas() -> np.ndarray:
+    """(H + 2, W, 3) uint8 procedural image from SEED: smooth colour
+    gradients, hard-edged rectangles and discs, a fine sinusoidal texture,
+    Gaussian noise, and a noise-free quantized ramp (the banding Deband and
+    CLAHE act on) in the left quarter."""
+    rng = np.random.default_rng(SEED)
+    hh = H + 2
+    yy, xx = np.mgrid[0:hh, 0:W].astype(np.float64)
+    img = np.stack([
+        40.0 + 170.0 * xx / W,
+        40.0 + 170.0 * yy / hh,
+        125.0 + 80.0 * np.sin(xx / 37.0 + yy / 23.0),
+    ], axis=-1)
+    for _ in range(10):
+        x0, y0 = rng.integers(0, W - 40), rng.integers(0, hh - 30)
+        w, h = rng.integers(20, 160), rng.integers(15, 120)
+        img[y0 : y0 + h, x0 : x0 + w] = rng.integers(0, 256, 3)
+    for _ in range(8):
+        cx, cy, r = rng.integers(0, W), rng.integers(0, hh), rng.integers(8, 60)
+        img[(xx - cx) ** 2 + (yy - cy) ** 2 < r * r] = rng.integers(0, 256, 3)
+    img += (20.0 * np.sin(xx * 1.7) * np.sin(yy * 1.3))[..., None]
+    img += rng.normal(0.0, 6.0, img.shape)
+    ramp = np.floor(60.0 + 24.0 * yy[:, : W // 4] / hh + 8.0 * xx[:, : W // 4] / W)
+    img[:, : W // 4] = ramp[..., None] + np.array([0.0, 20.0, 40.0])
+    return np.clip(np.rint(img), 0, 255).astype(np.uint8)
+
+
+def seeded_rgb24() -> Clip:
+    """Single-frame 640x320 RGB24 crop of the seeded canvas."""
+    u8 = _seeded_canvas()[:H]
+    return Clip.from_planes(tuple(u8[None, :, :, c] for c in range(3)),
+                            get_format("RGB24"))
+
+
+def seeded_temporal_rgb24() -> Clip:
+    """3-frame seeded clip; frame n is the canvas shifted down n rows."""
+    u8 = np.stack([_seeded_canvas()[n : n + H] for n in range(3)])
+    return Clip.from_planes(tuple(u8[:, :, :, c] for c in range(3)),
+                            get_format("RGB24"))
+
+
+def seeded_plane(shape, dtype, seed: int = SEED) -> np.ndarray:
+    """(N, H, W) plane of the given dtype with gradients, edges, texture
+    and noise, from `seed` (integer dtypes span their full range, float
+    dtypes [0, 1])."""
+    rng = np.random.default_rng(seed)
+    n, h, w = shape
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    v = 0.2 + 0.5 * (xx / w) * (yy / h)
+    v = v + 0.15 * np.sin(xx * 1.3 + yy * 0.7) * (xx > w / 3)
+    v = np.where((xx - w / 2) ** 2 + (yy - h / 2) ** 2 < (min(h, w) / 4) ** 2,
+                 0.85, v)
+    v = v[None] + rng.normal(0.0, 0.03, (n, h, w))
+    v = np.clip(v, 0.0, 1.0)
+    if np.issubdtype(dtype, np.integer):
+        return np.rint(v * np.iinfo(dtype).max).astype(dtype)
+    return v.astype(dtype)
 
 
 # ---------------------------------------------------------------------------

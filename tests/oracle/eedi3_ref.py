@@ -243,3 +243,93 @@ def eedi3_plane_ref(src, field, dh, mdis, nrad, alpha, beta, gamma, hp=False):
         out[line] = dst
         dmap[i] = fp
     return out, dmap
+
+
+def vcheck_ref(src, dst, dmap, field, dh, hp, vcheck, vthresh0=32.0,
+               vthresh1=64.0, vthresh2=4.0):
+    """vcheckLine (reference src/filters/eedi3.zig), one pixel at a time:
+    every interpolated line pd (except the first and last) is blended
+    toward its vertical 4-tap interpolation by a reliability weight built
+    from the direction map; line pd reads line pd-2 as already updated.
+    src (n_src, W) f32, dst (n_dst, W) the interpolated frame, dmap
+    (n_interp, W) the chosen directions."""
+    n_src, w = src.shape
+    n_dst = dst.shape[0]
+    n_interp = dmap.shape[0]
+    out = dst.copy()
+    rcp0 = _f32(1.0 / (vthresh0 / 255.0))
+    rcp1 = _f32(1.0 / (vthresh1 / 255.0))
+    rcp2 = _f32(1.0 / vthresh2)
+    vt2 = _f32(vthresh2)
+    half, quarter = _f32(0.5), _f32(0.25)
+    for off in range(1, n_interp - 1):
+        pd = field + 2 * off
+        if pd < 2 or pd + 2 >= n_dst:
+            continue
+        d2p, d1p, dl = out[pd - 2], dst[pd - 1], dst[pd]
+        d1n, d2n = dst[pd + 1], dst[pd + 2]
+        s3p = src[src_col(dh, pd - 3, n_src)]
+        s3n = src[src_col(dh, pd + 3, n_src)]
+        for x in range(w):
+            dm, dmp, dmn = (int(dmap[off, x]), int(dmap[off - 1, x]),
+                            int(dmap[off + 1, x]))
+            cint = _f32(_f32(0.5625) * _f32(d1p[x] + d1n[x])
+                        - _f32(0.0625) * _f32(s3p[x] + s3n[x]))
+            keep = (dm == 0 or max(dm * dmp, dm * dmn) < 0
+                    or (dmp == 0 and dmn == 0))
+            if hp:
+                maxoff = (abs(dm >> 1) if dm % 2 == 0
+                          else max(abs(dm >> 1), abs((dm + 1) >> 1)))
+            else:
+                maxoff = abs(dm)
+            if keep or x + maxoff >= w or x - maxoff < 0:
+                out[pd, x] = cint
+                continue
+            if hp:
+                d20, d21 = dm >> 1, (dm + 1) >> 1
+                up0, up1, up2 = (d2p[x + d20], d1p[x + d20], dl[x + d20])
+                dn0, dn1, dn2 = (dl[x - d20], d1n[x - d20], d2n[x - d20])
+                if dm % 2 == 0:
+                    it = _f32(_f32(up0 + dn0) * half)
+                    ib = _f32(_f32(up2 + dn2) * half)
+                    vt = _f32(abs(_f32(up0 - up1)) + abs(_f32(up2 - up1)))
+                    vb = _f32(abs(_f32(dn2 - dn1)) + abs(_f32(dn0 - dn1)))
+                else:
+                    s2ps = _f32(up0 + d2p[x + d21])
+                    s1ps = _f32(up1 + d1p[x + d21])
+                    pa0 = _f32(up2 + dl[x + d21])
+                    ps0 = _f32(dn0 + dl[x - d21])
+                    s1ns = _f32(dn1 + d1n[x - d21])
+                    s2ns = _f32(dn2 + d2n[x - d21])
+                    it = _f32(_f32(s2ps + ps0) * quarter)
+                    vt = _f32(_f32(abs(_f32(s2ps - s1ps))
+                                   + abs(_f32(pa0 - s1ps))) * half)
+                    ib = _f32(_f32(pa0 + s2ns) * quarter)
+                    vb = _f32(_f32(abs(_f32(s2ns - s1ns))
+                                   + abs(_f32(ps0 - s1ns))) * half)
+                dabs = abs(dm) >> 1
+            else:
+                up0, up1, up2 = d2p[x + dm], d1p[x + dm], dl[x + dm]
+                dn0, dn1, dn2 = dl[x - dm], d1n[x - dm], d2n[x - dm]
+                it = _f32(_f32(up0 + dn0) * half)
+                ib = _f32(_f32(up2 + dn2) * half)
+                vt = _f32(abs(_f32(up0 - up1)) + abs(_f32(up2 - up1)))
+                vb = _f32(abs(_f32(dn2 - dn1)) + abs(_f32(dn0 - dn1)))
+                dabs = abs(dm)
+            vc = _f32(abs(_f32(dl[x] - d1p[x])) + abs(_f32(dl[x] - d1n[x])))
+            d0 = abs(_f32(it - d1p[x]))
+            d1 = abs(_f32(ib - d1n[x]))
+            d2 = abs(_f32(vt - vc))
+            d3 = abs(_f32(vb - vc))
+            if vcheck == 1:
+                m0, m1 = min(d0, d1), min(d2, d3)
+            elif vcheck == 2:
+                m0, m1 = _f32(_f32(d0 + d1) * half), _f32(_f32(d2 + d3) * half)
+            else:
+                m0, m1 = max(d0, d1), max(d2, d3)
+            a0 = _f32(m0 * rcp0)
+            a1 = _f32(m1 * rcp1)
+            a2 = max(_f32(_f32(vt2 - _f32(dabs)) * rcp2), _f32(0.0))
+            a = min(max(a0, max(a1, a2)), _f32(1.0))
+            out[pd, x] = _f32(_f32(_f32(1.0) - a) * dl[x] + _f32(a * cint))
+    return out

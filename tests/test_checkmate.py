@@ -76,8 +76,8 @@ def test_reference_literal_averages(make_temporal_clip, args, expected):
 @pytest.mark.parametrize(
     "args", [{}, {"tthr2": 10}, {"thr": 40, "tmax": 3}, {"tmax": 255}], ids=str
 )
-def test_matches_literal_oracle(make_temporal_clip, args):
-    clip = crop_abs(make_temporal_clip("GRAY8"), width=32, height=24, left=90, top=40)
+def test_matches_literal_oracle(make_seeded_temporal_clip, args):
+    clip = crop_abs(make_seeded_temporal_clip("GRAY8"), width=32, height=24, left=90, top=40)
     out = checkmate(clip, **args)
     full = dict(thr=12, tmax=12, tthr2=0)
     full.update(args)

@@ -95,8 +95,8 @@ def test_combmask_mt_golden(golden, make_clip, case):
     ],
     ids=str,
 )
-def test_combmask_matches_oracle(make_temporal_clip, args):
-    clip = crop_abs(make_temporal_clip("GRAY8"), width=40, height=32, left=80, top=50)
+def test_combmask_matches_oracle(make_seeded_temporal_clip, args):
+    clip = crop_abs(make_seeded_temporal_clip("GRAY8"), width=40, height=32, left=80, top=50)
     out = comb_mask(clip, **args)
     full = dict(cthresh=6, mthresh=9, expand=True, metric=False)
     full.update(args)
@@ -109,8 +109,8 @@ def test_combmask_matches_oracle(make_temporal_clip, args):
 
 
 @pytest.mark.parametrize("thy", [(30, 30), (10, 60), (0, 0)])
-def test_combmask_mt_matches_oracle(make_clip, thy):
-    clip = crop_abs(make_clip("GRAY8"), width=40, height=32, left=80, top=50)
+def test_combmask_mt_matches_oracle(make_seeded_clip, thy):
+    clip = crop_abs(make_seeded_clip("GRAY8"), width=40, height=32, left=80, top=50)
     out = comb_mask_mt(clip, thY1=thy[0], thY2=thy[1])
     ref = comb_mask_mt_ref(np.asarray(clip.planes[0][0]), thy[0], thy[1])
     np.testing.assert_array_equal(np.asarray(out.planes[0][0]), ref)

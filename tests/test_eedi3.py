@@ -84,10 +84,10 @@ def test_golden_h(golden, make_clip, case):
     ],
     ids=str,
 )
-def test_matches_literal_oracle(make_clip, args):
+def test_matches_literal_oracle(make_seeded_clip, args):
     from oracle.eedi3_ref import eedi3_plane_ref
 
-    clip = crop_abs(make_clip("GRAYS"), width=40, height=24, left=100, top=60)
+    clip = crop_abs(make_seeded_clip("GRAYS"), width=40, height=24, left=100, top=60)
     full = dict(alpha=0.2, beta=0.25, gamma=20.0)
     full.update(args)
     out = eedi3(clip, vcheck=0, **args)

@@ -79,7 +79,7 @@ def test_golden(golden, make_clip, case):
 
 
 @pytest.mark.parametrize("crop", [(96, 64), (13, 7)], ids=["small", "tiny"])
-def test_matches_literal_oracle(make_clip, crop):
+def test_matches_literal_oracle(make_seeded_clip, crop):
     """Metric math pinned independently of the op's own goldens: sequential
     NumPy transcription of reference src/filters/ssimulacra2.zig:46-663
     (tests/oracle/ssimulacra2_ref.py) vs the op on linear RGB input
@@ -88,7 +88,7 @@ def test_matches_literal_oracle(make_clip, crop):
     from vszip_tpu import Clip, get_format
 
     cw, ch = crop
-    src = make_clip("RGBS")
+    src = make_seeded_clip("RGBS")
     p1 = [np.asarray(p)[:, 100 : 100 + ch, 200 : 200 + cw] for p in src.planes]
     p2 = [np.asarray(p) for p in
           boxblur(Clip.from_planes(tuple(p1), get_format("RGBS")),

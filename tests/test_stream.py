@@ -3,7 +3,7 @@ indistinguishable from one resident batch (planes bit-exact, per-frame
 props identical), including temporal ops fed boundary halos.
 
 The reference's host runtime streams frames with prefetch + cache
-(SURVEY §2.3); process_stream is the TPU-native equivalent
+(SURVEY §2.3); process_stream is the batched equivalent
 (vszip_tpu/runtime/stream.py)."""
 
 import numpy as np

@@ -159,11 +159,11 @@ def test_temporal_order_boundary(motion_sized):
 
 @pytest.mark.parametrize("fps", [24, 60])
 @pytest.mark.parametrize("temporal", [True, False])
-def test_matches_literal_oracle(make_temporal_clip, fps, temporal):
+def test_matches_literal_oracle(make_seeded_temporal_clip, fps, temporal):
     from oracle.xpsnr_ref import wsse_frame_ref
     from vszip_tpu.ops.xpsnr import _xpsnr_frame_stats
 
-    ref = make_temporal_clip("YUV420P8")
+    ref = make_seeded_temporal_clip("YUV420P8")
     dist = boxblur(ref, hradius=1, vradius=1)
     widths = tuple(ref.plane_dims(p)[0] for p in range(3))
     heights = tuple(ref.plane_dims(p)[1] for p in range(3))

@@ -1,31 +1,26 @@
-"""vszip_tpu: a TPU-native rebuild of the vszip frame-processing toolkit.
+"""vszip_tpu: a JAX rebuild of the vszip frame-processing toolkit.
 
 The reference (dnjulek/vapoursynth-zip) is a VapourSynth plugin of 23
 hand-SIMD Zig filters scheduled per-frame by the VS core thread pool.  This
-package re-designs the same surface TPU-first:
+package re-designs the same surface for an accelerator under XLA:
 
-* frames are batched ``(N, H, W)`` plane tensors in HBM (`Clip`);
+* frames are batched ``(N, H, W)`` plane tensors in device memory (`Clip`);
 * every filter is a pure jitted ``Clip -> Clip`` (or ``-> metrics``) op,
-  monomorphized by jit static args where the reference used comptime;
-* hot kernels are Pallas TPU kernels (vszip_tpu.kernels);
-* frame-level parallelism is the batch axis; multi-chip scaling shards the
-  batch over a ``jax.sharding.Mesh`` (vszip_tpu.parallel).
+  monomorphized by jit static args where the reference used comptime, and
+  written in plain ``jax.numpy``/``lax`` that XLA compiles and fuses;
+* frame-level parallelism is the batch axis; multi-device scaling shards
+  the batch over a ``jax.sharding.Mesh`` (vszip_tpu.parallel);
+* whole clips stream host to host through ``process_stream``
+  (vszip_tpu.runtime.stream).
 
 64-bit arithmetic is required for the bit-exact integer fixed-point paths
 (e.g. BoxBlur's ``(sum*inv + 2^31) >> 16`` chain), so x64 is enabled at
-import.  All kernels request explicit dtypes; nothing relies on defaults.
+import.  All ops request explicit dtypes; nothing relies on defaults.
 """
-
-import sys as _sys
 
 import jax as _jax
 
 _jax.config.update("jax_enable_x64", True)
-
-# Mosaic lowering of large kernels recurses deeper than CPython's default
-# 1000-frame limit (finite recursion over long op chains).
-if _sys.getrecursionlimit() < 10000:
-    _sys.setrecursionlimit(10000)
 
 from .core.clip import Clip, VariableClip  # noqa: E402
 from .core.format import (  # noqa: E402

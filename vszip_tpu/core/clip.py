@@ -2,12 +2,12 @@
 
 A clip is a pytree of per-plane arrays shaped ``(N, H, W)`` (N = frames)
 plus static format metadata.  Subsampled chroma planes are separate arrays
-(ragged shapes rule out one packed tensor for 4:2:0).  This is the TPU-native
+(ragged shapes rule out one packed tensor for 4:2:0).  This is the batched
 analogue of the reference's lazy frame graph: instead of per-frame
 ``getFrame`` callbacks scheduled by the VS thread pool
 (reference ``src/vapoursynth/boxblur.zig:29-116``), whole batches of frames
-live in HBM and ops are pure jitted ``Clip -> Clip`` functions; frame-level
-parallelism becomes the leading batch axis (and, across chips, a sharded
+live in device memory and ops are pure jitted ``Clip -> Clip`` functions; frame-level
+parallelism becomes the leading batch axis (and, across devices, a sharded
 batch axis — see vszip_tpu.parallel).
 """
 
@@ -182,7 +182,7 @@ class VariableClip:
     output VideoInfo and serves each frame wholesale from clip a or b
     (reference src/vapoursynth/rfs.zig:150-188 + the getFrame passthrough
     :18-29).  Batched plane tensors can't hold ragged frames, so the
-    TPU-native equivalent is this lazy union: ``get_frame(n)`` materializes a
+    batched equivalent is this lazy union: ``get_frame(n)`` materializes a
     single-frame Clip from whichever source owns frame n.  Dimensions report
     0 and format the falsy WIPED_FORMAT sentinel when the sources disagree,
     mirroring the wiped VideoInfo; piping the clip into any filter raises

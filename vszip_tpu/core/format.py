@@ -1,4 +1,4 @@
-"""Video format model (TPU-native rebuild of the reference's format layer).
+"""Video format model (JAX rebuild of the reference's format layer).
 
 Replaces VapourSynth's ``VSVideoFormat`` / preset-format registry and the
 reference's dtype-dispatch enums (``BPSType``/``DataType``,

@@ -4,7 +4,7 @@ Reproduces the behavior (and error-message style) of the reference's
 ``mapGetPlanes`` (src/helper.zig:128-158), ``getArray``/``Maps.getArray``
 (src/helper.zig:340-452), ``compareNodes`` (src/helper.zig:166-215) and
 ``scaleValue`` (src/helper.zig:306-338) as plain Python executed at op-build
-("create") time — the TPU analogue of VS create callbacks: all validation is
+("create") time — the analogue of VS create callbacks: all validation is
 trace-time, so jitted kernels only ever see static, pre-checked params.
 """
 

@@ -8,7 +8,7 @@ upsampling with left-sited horizontal siting and double-precision weights,
 limited-range depth conversion by f32 reciprocal multiply, and the ncl
 YUV->RGB matrix derived in double and applied in f32.  Residual deviation vs
 zimg is <=1 u16 LSB per pixel (zimg resizes integer formats in fixed point;
-here the resize runs in f32 on the MXU), far inside the SSIMULACRA2 golden
+here the resize runs as f32 matrix products), far inside the SSIMULACRA2 golden
 tolerance (rel 1e-3).
 """
 
@@ -335,7 +335,7 @@ def to_rgbs(clip: Clip, matrix: int | None = None) -> Clip:
 
 # Bayer 8x8 ordered-dither matrix (index dither; the rebuild's documented
 # stand-in for zimg error diffusion, which is inherently sequential and
-# hostile to TPU dataflow).
+# does not vectorize).
 _BAYER8 = np.array(
     [
         [0, 48, 12, 60, 3, 51, 15, 63],
@@ -445,7 +445,7 @@ def bit_depth(clip: Clip, bits: int, sample_type: SampleType | None = None,
 # resamplers (e.g. the SSIMULACRA2 test's Bicubic 2x distortion recipe,
 # reference tests/test_ssimulacra2.py:20-21).  `resize` reproduces zimg's
 # semantics: Q14 fixed point for integer pixels (bit-exact), f32 weight
-# matmuls on the MXU for float pixels, left-sited chroma siting shifts,
+# matmuls for float pixels, left-sited chroma siting shifts,
 # zimg's h-first/v-first pass-order cost rule.
 
 
@@ -470,7 +470,7 @@ def _resize_plane_q14(x, dst_h: int, dst_w: int, shift_w: float,
 
 def _resize_plane_f32(x, dst_h: int, dst_w: int, shift_w: float,
                       shift_h: float, kind: str, b: float, c: float):
-    """Float plane resize as two MXU matmuls with zimg compute_filter
+    """Float plane resize as two matmuls with zimg compute_filter
     weight matrices (f64-built, f32-applied)."""
     src_h, src_w = x.shape[-2], x.shape[-1]
 

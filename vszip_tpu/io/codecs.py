@@ -4,7 +4,7 @@ The reference decodes any zigimg-supported container via ``Image.fromMemory``
 (reference src/vapoursynth/image_read.zig:222-224); this repo implements the
 formats with real-world use — PNG/BMP (io/png.py) plus QOI and TGA here —
 as pure host-side decoders (image decode happens once at clip-build time and
-never touches the TPU dataflow).
+never touches the device dataflow).
 
 QOI: the complete spec (qoiformat.org) — RGB/RGBA ops, index table,
 diff/luma deltas, runs.  TGA: types 1/2/3 and their RLE variants 9/10/11,

@@ -5,7 +5,7 @@ Completes the zigimg container matrix (the reference accepts anything
 with these, every zigimg container family with a finished upstream decoder
 — PNG, BMP, QOI, TGA, netpbm (PBM/PGM/PPM/PAM/PFM), PCX, GIF, farbfeld,
 IFF/ILBM, SGI — has a pure host-side decoder here (decode happens once at
-clip-build time and never touches the TPU dataflow).  zigimg's JPEG
+clip-build time and never touches the device dataflow).  zigimg's JPEG
 support is upstream-experimental and not part of the reference's accepted
 matrix.
 

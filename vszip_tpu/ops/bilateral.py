@@ -117,7 +117,7 @@ def _range_weight(grf, cx, nb, is_int: bool):
 def _gr_direct(hist_len: int, sigma_r: float):
     """Direct evaluation of the range-weight function (the reference bakes
     it into a hist_len LUT, src/filters/bilateral.zig:306-348; per-pixel
-    table gathers are pathological on TPU, so the same expression is
+    table gathers are avoided, so the same expression is
     evaluated vectorized instead — identical formula, f32 exp)."""
     rng = float(hist_len - 1)
     upper = float(np.trunc(min(rng, sigma_r * 8.0 * rng + 0.5)))

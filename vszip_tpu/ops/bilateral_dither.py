@@ -44,16 +44,6 @@ def _pad_cache(x, rh: int, rv: int):
 def _dense(x, ref, rh: int, rv: int, m: float, wmax: float, swmin: float,
            peak: float, is_int: bool):
     n, h, w = x.shape
-    if rh <= 32 and rv <= 32:
-        from ..ops.boxblur import _on_tpu
-
-        if _on_tpu():
-            from ..kernels.bilateral_dither_pallas import dense_blur_pallas
-
-            xp = _pad_cache(x, rh, rv)
-            rp = None if ref is None else _pad_cache(ref, rh, rv)
-            return dense_blur_pallas(xp, rp, rh, rv, m, wmax, swmin, peak,
-                                     is_int, x.dtype)
     src_c = _pad_cache(x, rh, rv)
     ref_c = src_c if ref is None else _pad_cache(ref, rh, rv)
     cen = src_c[:, rv : rv + h, rh : rh + w]
@@ -64,7 +54,8 @@ def _dense(x, ref, rh: int, rv: int, m: float, wmax: float, swmin: float,
 
     # statically unrolled taps (same row-major order as the reference, so
     # f32 accumulation is bit-identical); static slices let XLA fuse many
-    # taps per HBM pass, where a lax.scan forced one serialized pass each
+    # taps into one pass over the plane, where a lax.scan would make one
+    # pass per tap
     s = jnp.zeros_like(cen)
     sw = jnp.zeros_like(cen)
     for dy in range(1, ndy + 1):
@@ -124,23 +115,6 @@ def _subspl(x, ref, tap_idx, rh: int, rv: int, m: float, wmax: float,
     if is_int:
         return jnp.floor(jnp.clip(p, 0.0, jnp.float32(peak)) + 0.5).astype(x.dtype)
     return p.astype(x.dtype)
-
-
-def _bd_on_tpu() -> bool:
-    from .boxblur import _on_tpu
-
-    return _on_tpu()
-
-
-def _list_ids(w: int, h: int) -> np.ndarray:
-    """(H, W) int32 point-list id per pixel: per row the LCG picks the start
-    list, each 4-pixel group advances it (reference
-    bilateral_dither.zig:124-134)."""
-    rows = rnd_row_values(h)
-    start = ((rows >> 8) % NBR_POINT_LISTS).astype(np.int64)
-    groups = (np.arange(w) >> 2).astype(np.int64)
-    return ((start[:, None] + groups[None, :]) % NBR_POINT_LISTS).astype(
-        np.int32)
 
 
 def _tap_indices(w: int, h: int, rh: int, rv: int, pts: np.ndarray, k: int):
@@ -224,22 +198,6 @@ def bilateral_dither(clip: Clip, ref: Clip | None = None, radius=None,
             pts, k = generate(r, r, sub)
             swmin = max(float(np.float32(wmin_a[p]) * np.float32(wmax)
                               * np.float32(k)), unit)
-            if r <= 32 and _bd_on_tpu():
-                from ..kernels.bilateral_dither_pallas import subspl_blur_pallas
-
-                dyx = jnp.asarray(
-                    np.stack([pts[:, :, 0], pts[:, :, 1]]).astype(np.int32))
-                spts = tuple(
-                    tuple((int(p[0]), int(p[1])) for p in lst) for lst in pts
-                )
-                out.append(subspl_blur_pallas(
-                    _pad_cache(x, r, r),
-                    None if rp is None else _pad_cache(rp, r, r),
-                    jnp.asarray(_list_ids(pw, ph)[None]),
-                    dyx, r, r, m, wmax, swmin, peak, is_int, x.dtype,
-                    static_pts=spts,
-                ))
-                continue
             tap_idx = jnp.asarray(_tap_indices(pw, ph, r, r, pts, k))
             out.append(
                 _subspl(x, rp, tap_idx, r, r, m, wmax, swmin, peak, is_int)

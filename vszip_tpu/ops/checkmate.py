@@ -128,17 +128,9 @@ def checkmate(clip: Clip, thr: int = 12, tmax: int = 12, tthr2: int = 0) -> Clip
             "wide and 5 tall."
         )
     use_tthr2 = tthr2 > 0
-    from .boxblur import _on_tpu
 
     out = []
     for p in clip.planes:
-        if _on_tpu() and p.shape[1] >= 5:
-            # fused band kernel: temporal neighbors arrive via clamped
-            # frame index maps instead of materialized shifted copies
-            from ..kernels.checkmate_pallas import checkmate_pallas
-
-            out.append(checkmate_pallas(p, thr, tmax, tthr2, use_tthr2))
-            continue
         p1 = _frame_shift(p, -1)
         n1 = _frame_shift(p, 1)
         p2 = _frame_shift(p, -2) if use_tthr2 else p

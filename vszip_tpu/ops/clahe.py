@@ -29,14 +29,21 @@ from ..core.params import VSZipError, require
 FILTER_NAME = "CLAHE"
 
 
+def _r(v):
+    """Round an f64 value to the nearest f32 value, kept in f64: with f32
+    operands, f64 products and sums are exact, so chaining _r reproduces
+    strict (uncontracted) f32 arithmetic on every backend — XLA is
+    otherwise free to contract mul+add into FMA, which flips ties at a
+    trunc(x + 0.5) rounding boundary.  reduce_precision is one explicit op,
+    which no simplifier folds the way it may fold a f64->f32->f64 convert
+    pair."""
+    return jax.lax.reduce_precision(v, exponent_bits=8, mantissa_bits=23)
+
+
 def _blend_bilinear_f32_exact(l0, l1, l2, l3, xa, ya):
-    """The reference's bilinear blend (clahe.zig:265-268) in strict f32:
-    every multiply/add is explicitly rounded to f32 (computed in f64, where
-    f32 products/sums are exact, then converted).  This makes the result
-    identical on every backend — XLA is otherwise free to contract mul+add
-    into FMA, which flips ties at the trunc(res+0.5) rounding boundary."""
-    def r(v):
-        return v.astype(jnp.float32).astype(jnp.float64)
+    """The reference's bilinear blend (clahe.zig:265-268) in strict f32
+    (see _r), identical on every backend."""
+    r = _r
 
     l0, l1, l2, l3 = (v.astype(jnp.float64) for v in (l0, l1, l2, l3))
     xa = xa.astype(jnp.float64)
@@ -65,21 +72,21 @@ def _clahe_plane(x, limit: int, tiles_x: int, tiles_y: int, bits: int):
     txy = xi.reshape(n, tiles_y, tile_h, tiles_x, tile_w)
     vals = txy.transpose(0, 1, 3, 2, 4).reshape(n * tiles_y * tiles_x, tile_area)
     if bits <= 8:
-        # nibble-decomposed MXU histogram: hist[t, h*16+l] counts pixels with
+        # nibble-decomposed histogram: hist[t, h*16+l] counts pixels with
         # high nibble h and low nibble l, i.e. an outer-product contraction
         # hi_onehot^T @ lo_onehot over the tile's pixels.  The one-hots cost
         # 32 compares/pixel (vs 256 for a direct compare-reduce) and the
-        # 256-bin accumulation rides the MXU in bf16.  Measured 5.1x over
-        # the compare-reduce at 8x1080p GRAY8 on one v5e, bit-equal.
+        # 256-bin accumulation is a matrix product.  It is exact under any
+        # matmul precision: the operands are 0/1 and every partial count
+        # stays below 2^24 in the f32 accumulator.
         #
-        # The contraction is CHUNKED over the pixel axis with a lax.scan:
-        # the (t, p, 16) bf16 one-hots are dot operands XLA materializes in
-        # HBM (~64 B/pixel combined), which at large batch x resolution
-        # blows past HBM and thrashes (measured: 1080p GRAY8 batch 64
-        # collapsed 1385 -> 58 fps un-chunked).  Chunking bounds the
-        # operands to ~t*0.5 MB per step, and since each partial histogram
-        # is accumulated in int32, counts are exact for ANY tile_area (the
-        # un-chunked f32 accumulator was only exact below 2^24 pixels).
+        # The contraction is CHUNKED over the pixel axis with a lax.scan
+        # once the (t, p, 16) bf16 one-hots XLA materializes as dot
+        # operands (~64 B/pixel combined) would pass 1 GiB.  Chunking bounds
+        # the operands to ~t*0.5 MB per step, and since each partial
+        # histogram is accumulated in int32, counts are exact for ANY
+        # tile_area (the un-chunked f32 accumulator is only exact below
+        # 2^24 pixels).
         i16 = jnp.arange(16, dtype=jnp.int32)
         t_cnt = vals.shape[0]
         onehot_bytes = 2 * t_cnt * tile_area * 16 * 2
@@ -96,10 +103,8 @@ def _clahe_plane(x, limit: int, tiles_x: int, tiles_y: int, bits: int):
             ).astype(jnp.int32)
         else:
             # chunk the pixel axis with a scan: bounds the materialized
-            # one-hots (measured: 1080p GRAY8 batch 64 collapsed
-            # 1385 -> 58 fps when ~8.5 GB of operands thrashed HBM) AND
-            # makes counts exact for any tile_area (partials <= chunk
-            # < 2^24 each, accumulated in int32).
+            # one-hots AND makes counts exact for any tile_area (partials
+            # <= chunk < 2^24 each, accumulated in int32).
             chunk = 32768
             pad = (-tile_area) % chunk
             # pad value -1: its high nibble matches no one-hot lane, so
@@ -147,9 +152,10 @@ def _clahe_plane(x, limit: int, tiles_x: int, tiles_y: int, bits: int):
 
     # --- cumulative sum -> LUT ---
     cdf = jnp.cumsum(hist, axis=-1)
-    lut = jnp.trunc(cdf.astype(jnp.float32) * lut_scale + jnp.float32(0.5)).astype(
-        jnp.int32
-    )  # values <= peak, fits the storage type
+    # strict f32 trunc(cdf * scale + 0.5), as the reference rounds it
+    lut = jnp.trunc(
+        _r(_r(cdf.astype(jnp.float64) * np.float64(lut_scale)) + 0.5)
+    ).astype(jnp.int32)  # values <= peak, fits the storage type
 
     if bits <= 8:
         # --- gather-free bilinear LUT interpolation ---
@@ -188,8 +194,8 @@ def _clahe_plane(x, limit: int, tiles_x: int, tiles_y: int, bits: int):
         # neighbor LUTs (values <= 255) pack into one i32 per bin, so the
         # chain is 256 compares + 256 selects of per-cell broadcasts — a
         # single fused elementwise kernel with no (..., B, ...) operand for
-        # XLA to materialize (the broadcast compare-reduce it replaces ran
-        # out of HBM at production batch sizes)
+        # XLA to materialize (a broadcast compare-reduce would hold a
+        # 256x copy of the plane)
         luti = lut.reshape(n, tiles_y, tiles_x, hist_size)
 
         def seli(tyr, txr):  # (n, RY, RX, B) i32 table per cell
@@ -201,26 +207,6 @@ def _clahe_plane(x, limit: int, tiles_x: int, tiles_y: int, bits: int):
             | (seli(ty2r, tx1r) << 16)
             | (seli(ty2r, tx2r) << 24)
         )  # (n, RY, RX, B)
-
-        from .boxblur import _on_tpu
-
-        if _on_tpu() and x.dtype == jnp.uint8:
-            # Pallas kernel: the whole select chain + blend runs on the
-            # VMEM-resident band (the XLA chain below splits into many
-            # kernels that each re-read the padded plane)
-            from ..kernels.clahe_pallas import clahe8_lookup_pallas
-
-            xp8 = jnp.pad(
-                x, ((0, 0), (thh, hp - thh - height), (twh, wp - twh - width))
-            )
-            ya2 = (tyf - np.floor(tyf)).astype(np.float32).reshape(
-                ry_n, tile_h)
-            xa2 = (txf - np.floor(txf)).astype(np.float32).reshape(1, wp)
-            res8 = clahe8_lookup_pallas(
-                xp8, tab32.reshape(n, ry_n, rx_n * hist_size),
-                jnp.asarray(ya2), jnp.asarray(xa2), tile_h, tile_w,
-            )
-            return res8[:, thh : thh + height, twh : twh + width]
 
         acc = jnp.broadcast_to(
             tab32[:, :, None, :, None, 0], cells.shape

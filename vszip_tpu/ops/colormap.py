@@ -54,9 +54,9 @@ def _lut(color: int) -> tuple:
 
 @partial(jax.jit, static_argnums=(1,))
 def _apply(x, color: int):
-    # per-pixel LUT via a bit-keyed mux tree instead of gathers (serialized
-    # on TPU) or a broadcast compare-reduce (whose (N,H,256,W) operand XLA
-    # materializes in HBM at production batch sizes).  The three channel
+    # per-pixel LUT via a bit-keyed mux tree instead of gathers or a
+    # broadcast compare-reduce (whose (N,H,256,W) operand XLA materializes
+    # in device memory at production batch sizes).  The three channel
     # LUTs pack into one i32 constant per bin; a 256-way mux costs 255
     # two-way selects however it is shaped, but keying each tree level off
     # one BIT of the pixel value drops the per-bin compares of a linear

@@ -120,16 +120,9 @@ def comb_mask(clip: Clip, cthresh: int = 6, mthresh: int = 9,
             f"{FILTER_NAME}: clip too small; every plane must be at least 3 rows tall."
         )
     cth6 = 0 if metric_1 else cthresh * 6
-    from .boxblur import _on_tpu
 
     out = []
     for p in clip.planes:
-        if _on_tpu() and p.shape[1] >= 3 and p.shape[2] >= 2:
-            from ..kernels.comb_mask_pallas import comb_mask_pallas
-
-            out.append(comb_mask_pallas(p, cthresh, cth6, mthresh, metric_1,
-                                        bool(expand)))
-            continue
         prev = jnp.concatenate([p[:1], p[:-1]], axis=0)  # frame n-1, clamped
         out.append(
             _comb_mask_plane(p, prev, cthresh, cth6, mthresh, metric_1,

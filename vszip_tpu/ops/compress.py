@@ -8,9 +8,9 @@ inverse DCT (ROW_SHIFT=11/COL_SHIFT=20 with the DC-only row fast path).
 All arithmetic is wrapping i32 (i64 for the quantizer products) with i16
 truncation between stages, so results are bit-exact to the reference.
 
-TPU mapping: the plane never leaves its natural (N, H, W) layout.  A
-(blocks, 8, 8) batch would put 8 on the minor axis — padded to the 128-wide
-lane tile, a 16x memory blowup on every materialization.  Instead, each
+Layout: the plane never leaves its natural (N, H, W) layout.  A
+(blocks, 8, 8) batch would put 8 on the minor axis, where every
+materialization pays a strided transpose.  Instead, each
 1-D transform stage is (linear combination -> single rounding shift) per
 output lane, so a whole pass is 15 shifted multiply-adds with period-8
 coefficient vectors: out[w] = sum_s M[w%8, w%8+s] * x[w+s].  Wrapping i32
@@ -268,10 +268,9 @@ def _tile_plane(tab64, h: int, w: int, dtype) -> np.ndarray:
 
 def _quant_setup(codec: str, qscale: int, dc_prec: int, quality: int,
                  is_chroma: bool):
-    """Host-side quantizer tables + the i64-wide determination shared by the
-    XLA and Pallas paths.  Returns (qa, qb, wide, consts) with qa/qb the
-    per-coefficient (64,) quant/dequant tables and `consts` the static
-    scalar pack the fused kernel needs."""
+    """Host-side quantizer tables + the i64-wide determination.  Returns
+    (qa, qb, wide) with qa/qb the per-coefficient (64,) quant/dequant
+    tables."""
     if codec == "mpeg2":
         qscale2 = qscale << 1
         qmat = (2 << QMAT_SHIFT) // (qscale2 * MPEG_INTRA)
@@ -280,18 +279,13 @@ def _quant_setup(codec: str, qscale: int, dc_prec: int, quality: int,
         # fits (every qscale >= 2 does) — i64 vector math is emulated-slow
         wide = (32767 * int(qmat[1:].max())
                 + max(MPEG_BIAS, MPEG_THRESH1) >= 2**31)
-        deq = qscale2 * MPEG_INTRA
-        dc_scale = 8 >> dc_prec
-        dc_q = dc_scale << 3
-        consts = (MPEG_THRESH1, MPEG_THRESH2, MPEG_BIAS, QMAT_SHIFT,
-                  int(np.log2(dc_q)), dc_scale)
-        return qmat, deq, wide, consts
+        return qmat, qscale2 * MPEG_INTRA, wide
     base = JPEG_CHROMA if is_chroma else JPEG_LUMA
     scale = 5000 // quality if quality < 50 else 200 - quality * 2
     qtab = np.clip((base * scale + 50) // 100, 1, 255)
     jqmat = (1 << QMAT_SHIFT) // (8 * qtab)
     wide = 32767 * int(jqmat.max()) + JPEG_BIAS >= 2**31
-    return jqmat, qtab, wide, (JPEG_BIAS, QMAT_SHIFT)
+    return jqmat, qtab, wide
 
 
 @partial(jax.jit, static_argnums=(1, 2, 3, 4))
@@ -304,7 +298,7 @@ def _compress_plane(x, codec: str, qscale: int, dc_prec: int, quality_chroma):
 
     dcm = (jnp.asarray((np.arange(h) % 8 == 0))[None, :, None]
            & jnp.asarray((np.arange(w) % 8 == 0))[None, None, :])
-    qa64, qb64, wide, _ = _quant_setup(codec, qscale, dc_prec, quality,
+    qa64, qb64, wide = _quant_setup(codec, qscale, dc_prec, quality,
                                        is_chroma)
     acc = jnp.int64 if wide else jnp.int32
     npacc = np.int64 if wide else np.int32
@@ -367,35 +361,14 @@ def compress(clip: Clip, codec: int = 0, quality: int = 50, qscale: int = 8,
     codec_name = "jpeg" if codec == 1 else "mpeg2"
     process = [True, bool(chroma), bool(chroma)]
 
-    from .boxblur import _on_tpu
-
     out = []
     for p, x in enumerate(clip.planes):
         if not process[p]:
             out.append(x)
             continue
         h, w = x.shape[1], x.shape[2]
-        qa64, qb64, wide, consts = _quant_setup(
-            codec_name, int(qscale), int(dc_prec), int(quality), p > 0)
-        if _on_tpu() and not wide:
-            # fused VMEM kernel: one plane read/write for the whole
-            # fdct -> quant -> idct chain (tiles are halo-free: both DCT
-            # passes stay inside aligned 8x8 groups)
-            from ..kernels.compress_pallas import BH, compress_plane_pallas
-
-            ph, pw = -h % BH, -w % 8
-            xp = jnp.pad(x, ((0, 0), (0, ph), (0, pw)), mode="edge")
-            level = 128 if codec_name == "jpeg" else 0
-            qa_t = jnp.asarray(
-                _tile_plane(qa64, BH, w + pw, np.int32)[0])
-            qb_t = jnp.asarray(
-                _tile_plane(qb64, BH, w + pw, np.int32)[0])
-            y = compress_plane_pallas(xp, qa_t, qb_t, codec_name, consts,
-                                      level)
-        else:
-            ph, pw = -h % 8, -w % 8
-            xp = jnp.pad(x, ((0, 0), (0, ph), (0, pw)), mode="edge")
-            y = _compress_plane(xp, codec_name, int(qscale), int(dc_prec),
-                                (int(quality), p > 0))
+        xp = jnp.pad(x, ((0, 0), (0, -h % 8), (0, -w % 8)), mode="edge")
+        y = _compress_plane(xp, codec_name, int(qscale), int(dc_prec),
+                            (int(quality), p > 0))
         out.append(y[:, :h, :w])
     return clip.with_planes(out)

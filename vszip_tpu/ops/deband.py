@@ -23,12 +23,12 @@ vectorized gathers + mode arithmetic):
   offsets the buffer per frame.
 
 Int clips below 16 bits are promoted to the 16-bit internal depth by shift
-and demoted afterwards with an 8x8 ordered (Bayer) dither — a documented
-deviation from the reference's zimg error-diffusion demote (sequential
-error diffusion is hostile to TPU; the dither only affects <16-bit output
-quantization noise).  pow/atan are the reference's VCL2 polynomial kernels
-(ops/vcl.py, ported from src/vcl.zig) so m6/m7 round like the reference's
-SIMD build; only XLA's FMA-contraction choices remain uncontrolled.
+and demoted afterwards with the reference's zimg Floyd-Steinberg
+error-diffusion dither.  That demote is row-sequential, so it runs on the
+host in native code (runtime/dither.py), frame by frame.  pow/atan are
+the reference's VCL2 polynomial kernels (ops/vcl.py, ported from
+src/vcl.zig) so m6/m7 round like the reference's SIMD build; only XLA's
+FMA-contraction choices remain uncontrolled.
 """
 
 from __future__ import annotations
@@ -47,21 +47,6 @@ from ..runtime.deband_rng import deband_precompute
 
 FILTER_NAME = "Deband"
 
-_BAYER8 = np.array(
-    [
-        [0, 48, 12, 60, 3, 51, 15, 63],
-        [32, 16, 44, 28, 35, 19, 47, 31],
-        [8, 56, 4, 52, 11, 59, 7, 55],
-        [40, 24, 36, 20, 43, 27, 39, 23],
-        [2, 50, 14, 62, 1, 49, 13, 61],
-        [34, 18, 46, 30, 33, 17, 45, 29],
-        [10, 58, 6, 54, 9, 57, 5, 53],
-        [42, 26, 38, 22, 41, 25, 37, 21],
-    ],
-    np.int32,
-)
-
-
 @lru_cache(maxsize=8)
 def _precompute(w, h, n, seed, sample_mode, range_, ssw, ssh, algo_ref,
                 algo_grain, param_ref, param_grain, is_float, dynamic,
@@ -76,8 +61,10 @@ def _precompute_device(w, h, n, seed, sample_mode, range_, ssw, ssh, algo_ref,
                        algo_grain, param_ref, param_grain, is_float, dynamic,
                        agy, agc, gy, gc, y_vstride, c_vstride):
     """Device-resident create-time state.  The ref-offset maps are ~25 MB at
-    1080p; uploading them per call would dominate the op (host->HBM rides
-    the relay link), so they are placed once per parameter set."""
+    1080p; uploading them per call would add a host-to-device copy larger
+    than the frames themselves, so they are placed once per parameter set
+    (eagerly, even when an outer jit such as process_stream's traces the
+    op, so the cache never holds a tracer)."""
     pre = _precompute(w, h, n, seed, sample_mode, range_, ssw, ssh, algo_ref,
                       algo_grain, param_ref, param_grain, is_float, dynamic,
                       agy, agc, gy, gc)
@@ -98,7 +85,7 @@ def _precompute_device(w, h, n, seed, sample_mode, range_, ssw, ssh, algo_ref,
             pre[pref + "ref2_dy"] = np.where(neg, -dy, dy).astype(dy.dtype)
             pre[pref + "ref2_dx"] = np.where(neg, -dx, dx).astype(dx.dtype)
     dev = {
-        k: jnp.asarray(v)
+        k: v
         for k, v in pre.items()
         if k.endswith(("_dy", "_dx"))
     }
@@ -109,20 +96,20 @@ def _precompute_device(w, h, n, seed, sample_mode, range_, ssw, ssh, algo_ref,
         need = max_off + hh * vs
         if len(buf) < need:
             buf = np.concatenate([buf, np.zeros(need - len(buf), buf.dtype)])
-        dev[key] = jnp.asarray(buf)
+        dev[key] = buf
     if dynamic:
-        dev["grain_offsets"] = jnp.asarray(
-            pre["grain_offsets"][:n].astype(np.int32))
+        dev["grain_offsets"] = pre["grain_offsets"][:n].astype(np.int32)
     else:
-        dev["grain_offsets"] = jnp.zeros((n,), jnp.int32)
-    return dev
+        dev["grain_offsets"] = np.zeros((n,), np.int32)
+    with jax.ensure_compile_time_eval():
+        return jax.device_put(dev)
 
 
 def _gather(x, dy, dx):
     """src[y+dy, x+dx] per pixel; (N,H,W) x, (H,W) int32 offsets (in-bounds
     by construction; clamped defensively).  Only sample_mode 2 needs this:
-    its ref offsets are jointly 2-D (dy,dx pairs), which on TPU is a real
-    per-pixel gather (~1 elem/cycle, the op's documented hard case)."""
+    its ref offsets are jointly 2-D (dy,dx pairs), so it is a real
+    per-pixel gather."""
     n, h, w = x.shape
     flat = _flat_idx(dy, dx, h, w).reshape(-1)
     return jnp.take(x.reshape(n, h * w), flat, axis=1).reshape(n, h, w)
@@ -132,33 +119,6 @@ def _flat_idx(dy, dx, h, w):
     yy = jnp.clip(jax.lax.broadcasted_iota(jnp.int32, (h, w), 0) + dy, 0, h - 1)
     xx = jnp.clip(jax.lax.broadcasted_iota(jnp.int32, (h, w), 1) + dx, 0, w - 1)
     return yy * w + xx
-
-
-def _gather4_packed_u32(x, r1dy, r1dx, r2dy, r2dx):
-    """The four m2 taps on a frame-pair-packed u32 plane.
-
-    TPU's gather loop retires ~one gathered ELEMENT per cycle regardless of
-    element width (measured: 4 u16 taps 227 ms, same taps on 2-frame u32
-    packing 189 ms at 32x1080p), so packing two u16 frames into each u32
-    halves the loop count per tap.  Returns ((r1,r3,r2,r4) even-frame i32,
-    same for odd frames, n_even) — even/odd stay separate so the mode
-    arithmetic runs on the packed halves and only the final center is
-    re-interleaved."""
-    n, h, w = x.shape
-    n2 = (n + 1) // 2
-    if n & 1:
-        x = jnp.concatenate([x, jnp.zeros((1, h, w), x.dtype)], axis=0)
-    ev = x[0::2].astype(jnp.uint32)
-    od = x[1::2].astype(jnp.uint32)
-    xp = (ev | (od << 16)).reshape(n2, h * w)
-    outs = []
-    for dy, dx in ((r1dy, r1dx), (-r1dy, -r1dx), (r2dy, r2dx),
-                   (-r2dy, -r2dx)):
-        g = jnp.take(xp, _flat_idx(dy, dx, h, w).reshape(-1), axis=1)
-        g = g.reshape(n2, h, w)
-        outs.append(((g & jnp.uint32(0xFFFF)).astype(jnp.int32),
-                     (g >> 16).astype(jnp.int32)))
-    return tuple(o[0] for o in outs), tuple(o[1] for o in outs)
 
 
 def _sep_taps(xi, vmap, rmax: int, rows: bool, cols: bool):
@@ -226,8 +186,7 @@ def _angle_lookup(ang, dy, dx):
 def _mode_center(mode: int, blur_first: bool, is_int: bool,
                  c, r1, r3, r2, r4, thr, thr1, thr2, t_planes=None):
     """Per-mode center arithmetic on already-resolved taps (reference
-    src/filters/deband_int.zig:93-340 / deband_float.zig) — shared by the
-    XLA path and the Pallas band kernel.  For modes 6/7 `t_planes` may
+    src/filters/deband_int.zig:93-340 / deband_float.zig).  For modes 6/7 `t_planes` may
     supply per-pixel (t_avg, t_max, t_mid) threshold planes (m7's angle
     boost); otherwise the scalar thresholds broadcast."""
 
@@ -331,11 +290,11 @@ def _mode_center(mode: int, blur_first: bool, is_int: bool,
     return blended
 
 
-@partial(jax.jit, static_argnums=(7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17))
+@partial(jax.jit, static_argnums=(7, 8, 9, 10, 11, 12, 13, 14, 15, 16))
 def _deband_plane(x, r1dy, r1dx, r2dy, r2dx, grain_buf, grain_off,
                   mode: int, blur_first: bool, add_grain: bool, is_int: bool,
                   thr3, pix_range, boost, vstride: int, rmax: int,
-                  dynamic: bool, m2_sym: bool = False):
+                  dynamic: bool):
     thr, thr1, thr2 = thr3
     pixel_min, pixel_max = pix_range
     angle_boost, max_angle = boost
@@ -345,49 +304,6 @@ def _deband_plane(x, r1dy, r1dx, r2dy, r2dx, grain_buf, grain_off,
     # Separable modes (everything but m2, and any range small enough that
     # the refEncode -128 wrap can't appear) resolve their taps gather-free.
     separable = mode != 2 and rmax < 128
-
-    from .boxblur import _on_tpu
-
-    if (separable and is_int and mode in (1, 3, 4, 5, 6) and rmax <= 16
-            and w >= 128 and _on_tpu()):
-        # fused VMEM band kernel: alphabet loop + mode arithmetic in one
-        # pass (the XLA chain below re-reads the padded plane per select)
-        from ..kernels.deband_pallas import deband_center_pallas
-
-        center = deband_center_pallas(
-            x, r1dy + r1dx, mode, blur_first, rmax, (thr, thr1, thr2)
-        ).astype(acc)
-        return _deband_tail(center, grain_buf, grain_off, add_grain, dynamic,
-                            acc, pixel_min, pixel_max, vstride, x.dtype)
-
-    if mode == 2 and is_int and m2_sym and rmax <= 16 and w >= 128 and _on_tpu():
-        # fused VMEM band kernel: the four jointly-2-D taps resolve as one
-        # masked select chain over the (val1, val2) alphabet — val1 = ref1_dx,
-        # val2 = ref1_dy, and (when the plane's subsampling is symmetric)
-        # ref2 = (-val1, val2) exactly (see deband_m2_pallas.py)
-        from ..kernels.deband_m2_pallas import deband_m2_center_pallas
-
-        na = 2 * rmax + 1
-        key = (r1dx + rmax) * na + (r1dy + rmax)
-        center = deband_m2_center_pallas(x, key, blur_first, rmax, thr)
-        return _deband_tail(center.astype(acc), grain_buf, grain_off,
-                            add_grain, dynamic, acc, pixel_min, pixel_max,
-                            vstride, x.dtype)
-
-    if mode == 2 and is_int and n >= 2 and _on_tpu():
-        # frame-pair-packed gathers; mode math on the packed halves, one
-        # interleave at the end (see _gather4_packed_u32)
-        evs, ods = _gather4_packed_u32(x, r1dy, r1dx, r2dy, r2dx)
-        cpad = (jnp.concatenate([c, jnp.zeros((1, h, w), c.dtype)], axis=0)
-                if n & 1 else c)
-        halves = []
-        for taps, cc in ((evs, cpad[0::2]), (ods, cpad[1::2])):
-            halves.append(_mode_center(mode, blur_first, is_int, cc,
-                                       taps[0], taps[1], taps[2], taps[3],
-                                       thr, thr1, thr2))
-        center = jnp.stack(halves, axis=1).reshape(-1, h, w)[:n]
-        return _deband_tail(center, grain_buf, grain_off, add_grain, dynamic,
-                            acc, pixel_min, pixel_max, vstride, x.dtype)
 
     if separable:
         vmap = r1dy + r1dx  # exactly one of the two holds val1
@@ -567,7 +483,6 @@ def deband(clip: Clip, range=15, thr=None, thr1=None, thr2=None, grain=None,
             (t[p], t1[p], t2[p]), (pmin[p], pmax[p]),
             (float(angle_boost), float(max_angle)), vstride, int(range_),
             dynamic_grain,
-            p == 0 or fmt.subsampling_w == fmt.subsampling_h,
         )
         if shift:
             # zimg-exact Floyd-Steinberg error-diffusion demote back to the

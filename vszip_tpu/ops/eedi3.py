@@ -12,7 +12,7 @@ direction path, and interpolate along the chosen direction with a 4-tap
 reliability post-pass blending back toward a vertical interpolation (or
 `sclip`).  EEDI3H is the same pipeline on transposed planes.
 
-TPU mapping: all lines of all frames batch into one (B, L, W) tensor; the
+Layout: all lines of all frames batch into one (B, L, W) tensor; the
 cost matrix is built with static padded-index gathers (multi-bounce mirror
 tables precomputed on host); the x-sequential DP is a `lax.scan` over W
 with a (B, L, tpitch) carry — the batch dimensions hold the parallelism
@@ -81,7 +81,7 @@ def _take_pad(row, off: int):
 def _pad_rows(rows):
     """(B, L, w) -> (B, L, w + 2*PAD) via the mirror cascade.  For w > PAD+1
     the cascade is a single reflection each side, expressible as reversed
-    slices (fuses; the gather form cost ~40 ms/step at the benchmark shape);
+    slices, which fuse into their consumers where a gather would not;
     smaller widths wrap multiple times and keep the index-table gather."""
     w = rows.shape[-1]
     if w > PAD + 1:
@@ -212,8 +212,7 @@ def _costs_hp(r3p, r1p, r1n, r3n, mdis, nrad, alpha3, beta255, one_minus_ab):
 
 def _dp(tcosts, bmask, gamma: float, hp: bool):
     """Viterbi DP across x.  tcosts (tpitch, B, L, W) — tpitch LEADS so the
-    per-step state tiles (B, L) onto the (8,128) register layout; with
-    tpitch minormost the scan ran on 41 of 128 lanes.  bmask (B, L, W)
+    per-step state keeps the wide (B, L) axes minor.  bmask (B, L, W)
     bool or None.  Returns fpath (B, L, W) i32."""
     tpitch, b, l, w = tcosts.shape
     big = jnp.float32(FLT_MAX_09)
@@ -318,7 +317,7 @@ def _dp(tcosts, bmask, gamma: float, hp: bool):
     def back(carry, piT):
         f = carry  # (B, L) i32
         idx = mdis_center + f
-        # per-pixel tpitch lookup as a select chain (gathers serialize)
+        # per-pixel tpitch lookup as a select chain
         piTi = piT.astype(jnp.int32)
         delta = piTi[0]
         for t in range(1, tpitch):
@@ -353,7 +352,7 @@ def _dp(tcosts, bmask, gamma: float, hp: bool):
 
 
 def _select_multi(fpath, fmin: int, fmax: int, taps):
-    """Directional lookups without per-pixel gathers (serialized on TPU):
+    """Directional lookups without per-pixel gathers:
     for each candidate direction value fv the needed positions are STATIC
     lane slices of the padded rows, chained with selects on ``fpath == fv``
     (one shared compare per fv).  `taps` is a list of (row, off_fn) with
@@ -478,44 +477,11 @@ def _build_bmask(maskp, mdis: int):
     return jnp.concatenate([bm_main, bm_tail], axis=2)
 
 
-def _dp_on_tpu() -> bool:
-    from .boxblur import _on_tpu
-
-    return _on_tpu()
-
-
 @partial(jax.jit, static_argnums=(3, 4, 5, 6))
 def _interp_all(rows4, mask, scp_dummy, params, hp: bool, w: int, use_mask: bool):
     (mdis, nrad, alpha, beta, gamma, one_minus_ab) = params
     r3p, r1p, r1n, r3n = [_pad_rows(r) for r in rows4]
     bm = _build_bmask(mask, mdis) if use_mask else None
-    if (bm is None or not hp) and _dp_on_tpu():
-        from ..kernels.eedi3_fused_pallas import (eedi3_fused_hp_pallas,
-                                                  eedi3_fused_pallas,
-                                                  fused_fits)
-
-        if fused_fits(w, mdis, hp):
-            # fully fused kernel: cost build + DP + backtrack +
-            # interpolation in VMEM (the 2*mdis+1 / 4*mdis+1-direction cost
-            # tensor never touches HBM); the non-hp variant also takes the
-            # mclip gate
-            # alpha/beta here are the SCALED cost coefficients (alpha/3,
-            # beta/255); one_minus_ab comes from the unscaled user values
-            # (reference src/vapoursynth/eedi3.zig:465-466) and must be
-            # passed through — recomputing it from the scaled pair inside
-            # the kernel wrapper mis-weighted the v term by ~1.7x and was
-            # the round-3 eedi3_photo on-chip parity failure.
-            if hp:
-                out, fpath = eedi3_fused_hp_pallas(
-                    r3p, r1p, r1n, r3n, w, mdis, nrad,
-                    float(alpha), float(beta), float(gamma),
-                    float(one_minus_ab))
-            else:
-                out, fpath = eedi3_fused_pallas(
-                    r3p, r1p, r1n, r3n, w, mdis, nrad,
-                    float(alpha), float(beta), float(gamma),
-                    float(one_minus_ab), bm)
-            return out, fpath
     if hp:
         clist = _costs_hp(r3p, r1p, r1n, r3n, mdis, nrad, alpha, beta,
                           one_minus_ab)
@@ -546,7 +512,7 @@ def _vcheck(src_lines, dst_lines, scp, dmap, field, n_interp, n_dst, n_src,
     Line ``off`` reads the line the previous iteration updated (pd-2), so
     the pass is a `lax.scan` carrying that one row; every per-pixel
     direction lookup decomposes into a select over the <= 2*mdis+1 possible
-    shifts (TPU gathers serialize — this is ~1000x cheaper)."""
+    shifts."""
     rcp0 = np.float32(1.0 / (vthresh0 / 255.0))
     rcp1 = np.float32(1.0 / (vthresh1 / 255.0))
     rcp2 = np.float32(1.0 / vthresh2)
@@ -580,33 +546,6 @@ def _vcheck(src_lines, dst_lines, scp, dmap, field, n_interp, n_dst, n_src,
         s3n_a = jnp.moveaxis(src_lines[:, c3n], 1, 0)
         cint_a = (jnp.float32(0.5625) * (d1p_a + d1n_a)
                   - jnp.float32(0.0625) * (s3p_a + s3n_a))
-
-    if _dp_on_tpu():
-        # fused Pallas sweep: the scan below is pure loop-overhead bound on
-        # TPU (~24 ms for 538 lines at 8x1920 — vcheck alone halved EEDI3);
-        # the kernel runs the line loop as a sequential pallas grid with the
-        # carried updated-line in VMEM scratch (kernels/vcheck_pallas.py).
-        from ..kernels.vcheck_pallas import B_BLK, vcheck_pallas
-
-        b = dl_a.shape[1]
-        pad_b = (-b) % B_BLK
-
-        def padb(x, axis):
-            if not pad_b:
-                return x
-            widths = [(0, 0)] * x.ndim
-            widths[axis] = (0, pad_b)
-            return jnp.pad(x, widths)
-
-        nb = jnp.stack([d1p_a, d1n_a, d2n_a], axis=1)
-        dmst = jnp.stack([dm_p_a, dm_c_a, dm_n_a], axis=1).astype(jnp.int32)
-        init = dst_lines[:, pds[0] - 2]
-        ys = vcheck_pallas(
-            padb(dl_a, 1), padb(nb, 2), padb(dmst, 2), padb(cint_a, 1),
-            padb(init, 0), w, mdis, hp, vcheck,
-            float(rcp0), float(rcp1), float(rcp2), float(vt2))
-        return dst_lines.at[:, pds[0] : pds[-1] + 1 : 2].set(
-            jnp.moveaxis(ys[:, :b], 0, 1))
 
     col_i = jax.lax.broadcasted_iota(jnp.int32, dl_a.shape[1:], dl_a.ndim - 2)
 

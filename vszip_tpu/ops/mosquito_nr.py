@@ -59,8 +59,7 @@ def _half(a, is_int):
 
 
 def _sads(t, radius, is_int):
-    """Direction pass on a generic tap closure `t(dy, dx)` (shared by the
-    XLA path and the Pallas band kernel)."""
+    """Direction pass on a generic tap closure `t(dy, dx)`."""
     c = t(0, 0)
     A = lambda v: jnp.abs(v - c)
     H = lambda a, b: jnp.abs(_half(a + b, is_int) - c)
@@ -205,9 +204,8 @@ def _mosquito_plane(x, strength: int, restore: int, radius: int, bits: int,
         work = x.astype(jnp.float32)
         lo_clamp = -0.5 if chroma else 0.0
         hi_clamp = 0.5 if chroma else 1.0
-    # The direction pass stays a plain XLA stencil: a fused Pallas band
-    # kernel was measured SLOWER here (16.8 vs 13.8 ms at 1080p b32) —
-    # XLA already fuses the +-2 tap chains into few passes.
+    # The direction pass is a plain XLA stencil: XLA fuses the +-2 tap
+    # chains into few passes.
     p = _pad2(work)
     tap = lambda dy, dx: _shift(p, dy, dx, h, w)
     dirs = _sads(tap, radius, is_int)

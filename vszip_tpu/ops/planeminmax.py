@@ -5,7 +5,7 @@ With ``minthr``/``maxthr`` > 0 the reference builds a histogram (floats are
 binned at ``u16(v*65535 + 0.5)``, clamped) and walks from each end until the
 cumulative count exceeds ``trunc(total*thr)``.  The walk is a monotone
 threshold search, so here it is a 17-step vectorized binary search over the
-bin range (identical result, no scatter/histogram on TPU).  With both thr 0
+bin range (identical result, no scatter/histogram).  With both thr 0
 it's a plain min/max.  Props ``{prop}Min/Max/Diff`` on a copy of clipa.
 """
 

@@ -13,7 +13,7 @@ reference's SIMD build instead of like XLA's own transcendental
 lowering.
 
 Deviation note: the Zig kernels use ``@mulAdd`` (true fused
-multiply-add, one rounding).  XLA on TPU decides contraction itself;
+multiply-add, one rounding).  XLA decides contraction itself;
 ``a * b + c`` below may round twice.  The reference-pinned goldens
 (rel 1e-6 on Deband m6/m7, rel 1e-3 on SSIMULACRA2) bound the
 residual from that difference.

@@ -1,10 +1,10 @@
-"""Multi-chip scaling: shard the frame batch over a device mesh.
+"""Multi-device scaling: shard the frame batch over a device mesh.
 
 The reference's only parallelism is frame-level task parallelism on the VS
-thread pool plus SIMD lanes (SURVEY §2.3).  The TPU-native equivalent is a
+thread pool plus SIMD lanes (SURVEY §2.3).  The batched equivalent is a
 1-D ``frames`` mesh axis: every filter is embarrassingly parallel over the
-leading (N, H, W) batch axis, so data parallelism over frames rides ICI with
-zero communication for spatial filters; metric filters (PlaneAverage,
+leading (N, H, W) batch axis, so data parallelism over frames needs
+no communication for spatial filters; metric filters (PlaneAverage,
 PlaneMinMax, XPSNR, SSIMULACRA2) reduce with a single XLA collective that
 jit inserts from the sharding annotations; temporal filters (Checkmate,
 XPSNR temporal, CombMask motion) take a +/-2-frame halo which we realize by

@@ -5,7 +5,7 @@
 // planes and grain buffers from one strictly sequential PRNG stream.  The
 // stream interleaves grain/ref/chroma draws per pixel, so it cannot be
 // vectorized; like the reference we run it natively and hand the resulting
-// constant tensors to the TPU compute path.
+// constant tensors to the device compute path.
 //
 // Differences from the reference's encoding: offsets are emitted as
 // separate (dy, dx) planes instead of stride-baked linear offsets, so the

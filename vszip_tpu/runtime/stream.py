@@ -1,16 +1,16 @@
-"""Streaming executor: run an op over a clip larger than HBM.
+"""Streaming executor: run an op over a clip larger than device memory.
 
 The reference's host runtime streams frames through the filter graph with a
 request-pattern prefetcher (SURVEY §2.3; the VS core requests frames ahead
-of the consumer and caches them).  The TPU-native analogue is a chunked
-batch pipeline over one chip:
+of the consumer and caches them).  The batched analogue is a chunked
+pipeline over one device (or a frames mesh):
 
 * the source yields host frame ranges on demand (never materializing the
   whole clip),
-* host->HBM transfers are double-buffered: batch i+1 is enqueued with
+* host->device transfers are double-buffered: batch i+1 is enqueued with
   ``jax.device_put`` (async) while batch i computes,
-* the compiled step donates its input buffers (``donate_argnums``), so HBM
-  holds at most ~2 batches regardless of clip length,
+* the compiled step donates its input buffers (``donate_argnums``), so device
+  memory holds at most ~2 batches regardless of clip length,
 * results drain to a host ``sink`` callback (or accumulate per-frame props
   for metric ops), which is the only blocking point — by the time batch i
   is read back, batch i+1 is already in flight.
